@@ -1,4 +1,4 @@
-"""eigd_tpu — a TPU-native framework for adjoint derivatives of generalized
+"""eigd_tpu — an accelerator-native framework for adjoint derivatives of generalized
 symmetric eigenproblems ``A(x) phi = lam * B(x) phi``.
 
 This is a from-scratch JAX/XLA/Pallas rebuild of the capability set of
@@ -13,7 +13,7 @@ density filtering, and aggregation objectives — all wired into JAX autodiff vi
 eigenvectors compose with the rest of a JAX program.
 
 Everything on the compute path is jit-compatible: static shapes, ``lax`` control
-flow, batched tall-skinny matmuls for the MXU, and ``shard_map`` sharding over a
+flow, batched tall-skinny matmuls, and ``shard_map`` sharding over a
 device mesh for the large-problem path.
 """
 

@@ -5,7 +5,7 @@ Rebuild of the assembly in /root/reference/examples/natural_frequency.py
 design:
 
 * Matrices are produced as ``ElementOperator``s (per-element dense blocks +
-  DOF map) rather than CSR — the TPU-native matrix-free form; ``.to_dense()``
+  DOF map) rather than CSR — the on-device matrix-free form; ``.to_dense()``
   feeds the Cholesky factor when an explicit factorization is wanted.
 * Every builder is a pure, differentiable function of the element densities
   (and displacement field for the stress stiffness), so all of the
@@ -83,8 +83,7 @@ def stiffness_matrix(rhoE, Be, detJ, dofs, nvars, C0, ptype="simp", p=3.0,
     """
     c = stiffness_interp(rhoE, ptype=ptype, p=p, q=q, rho0=rho0)
     # Staged contraction (explicit pairwise order): the 3-operand einsum can
-    # be planned into a huge outer-product intermediate by XLA:TPU's f64
-    # emulation (observed compile-time OOM at 131k elements).
+    # be planned into a huge outer-product intermediate.
     CB = jnp.einsum("ik,qekl->qeil", C0, Be)  # (nq, ne, 3, 8)
     w = c[None, :] * detJ  # (nq, ne)
     Ke = jnp.einsum("qeij,qeil->ejl", Be, CB * w[:, :, None, None])

@@ -1,7 +1,7 @@
 """Minimal NASTRAN bulk-data (BDF) reader for shell modal analysis.
 
 The reference builds the CRM wingbox from a NASTRAN BDF through pyTACS
-(C++/MPI, /root/reference/examples/crm.py:62-121). This is the TPU-native
+(C++/MPI, /root/reference/examples/crm.py:62-121). This is the on-device
 ingestion path for the same external capability: a deliberately small,
 dependency-free subset —
 

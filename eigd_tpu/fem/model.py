@@ -128,7 +128,7 @@ def make_symmetric_dvmap_with_sets(mesh: GridMesh, Mx=3, My=3, ns=2,
 
 def cantilever_bcs(mesh: GridMesh, side="left"):
     """Dirichlet boundary: clamp all DOFs on one edge. Returns the free-DOF
-    index array (the TPU-native form of buckling.py's `reduced` list,
+    index array (the on-device form of buckling.py's `reduced` list,
     :122-138)."""
     nvars = 2 * mesh.nnodes
     fixed = np.zeros(nvars, dtype=bool)

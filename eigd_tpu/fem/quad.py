@@ -3,7 +3,7 @@
 Rebuild of /root/reference/examples/fe_utils.py as pure jnp functions: the
 reference already vectorizes over elements with einsum; here the quadrature
 tables are additionally stacked over the 2x2 Gauss points so the downstream
-assembly contractions are single batched einsums on the MXU.
+assembly contractions are single batched einsums.
 
 Element DOF ordering matches the reference: [ux0, uy0, ux1, uy1, ...]
 (natural_frequency.py:88-91 var layout); quadrature-point index layout is

@@ -1,7 +1,7 @@
 """Flat-shell Q4 element (membrane + Mindlin bending + reduced shear) with
 6 DOF/node, batched over elements.
 
-TPU-native replacement for the role TACS plays in the reference's CRM wingbox
+On-device replacement for the role TACS plays in the reference's CRM wingbox
 example (/root/reference/examples/crm.py:62-144): isotropic shell stiffness
 and consistent mass as differentiable functions of per-element thickness, so
 matrix-DV sensitivities (TACS addMatDVSensInnerProduct, crm.py:343-357) come
@@ -137,10 +137,9 @@ def shell_element_matrices(Xe, thickness, E=70e9, nu=0.3, rho=2700.0,
     # rotate to global: T = blockdiag(R x 8); K_g = T^T K_l T as two batched
     # (e, 24, 24) GEMMs. Layout note: the earlier per-node-block einsum
     # ("erp,eirjs,esq->eipjq") materialized (e, 4, 6, 4, 6)-shaped
-    # temporaries whose tiny trailing dims pad ~28x under the TPU (8, 128)
-    # tile — measured 18 GB of HLO temps (OOM) for a 20k-element assembly.
-    # The GEMM form keeps every intermediate at the operands' (e, 24, 24)
-    # shape (~5x lane padding, the best a 24-wide trailing dim can do).
+    # temporaries with tiny trailing dims, which tiled layouts pad many
+    # times over. The GEMM form keeps every intermediate at the operands'
+    # (e, 24, 24) shape.
     T = jnp.zeros((nelems, 24, 24))
     for i in range(4):
         T = T.at[:, 6 * i:6 * i + 3, 6 * i:6 * i + 3].set(R)

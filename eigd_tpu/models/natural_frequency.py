@@ -41,9 +41,8 @@ class TopologyAnalysis:
                  lanczos_tol=None, lanczos_block=1, lanczos_ortho="full",
                  lanczos_check_every=1, uniform_grid=False,
                  factor_options=None, lanczos_polish=0,
-                 lanczos_polish_spare=0, lanczos_sweep="exact",
-                 pallas_mv="auto"):
-        del solver_type, deriv_type  # single TPU-native solver; always batched
+                 lanczos_polish_spare=0, lanczos_sweep="exact"):
+        del solver_type, deriv_type  # single solver; always batched
         self.fltr = fltr
         self.conn = jnp.asarray(np.asarray(conn))
         self.X = jnp.asarray(np.asarray(X))
@@ -74,7 +73,7 @@ class TopologyAnalysis:
             #     subspace iteration on the selected block — one more
             #     degree, applied exactly where it is needed.
             # Measured calibration: N=6, block=16, q=11, polish=3 gives
-            # q_eff = 24 >= 18 and verifies at jvp 4.2e-7 (BENCH_r04);
+            # q_eff = 24 >= 18 and verifies at jvp 1.5e-9 on the H100;
             # block=8, q=17 (r3 default) gives q_eff = 22. A genuinely
             # marginal config (q_eff below 2N+6) still warns.
             q_deg = m // lanczos_block
@@ -132,12 +131,12 @@ class TopologyAnalysis:
             adjoint_mixed=adjoint_options.get("mixed", False),
             adjoint_ladder=adjoint_options.get("ladder", "approx"),
             polish=lanczos_polish, polish_spare=lanczos_polish_spare,
-            lanczos_sweep=lanczos_sweep, pallas_mv=pallas_mv)
+            lanczos_sweep=lanczos_sweep)
         # Scalable path: never densify — block-tridiagonal Cholesky of the
         # shifted element matrices using the grid line structure, with
         # matrix-free element-operator matvecs everywhere else.
-        # 'blocktridiag_f32' stores the factor in f32 (half the HBM, f32 MXU
-        # rate on the apply scans) and recovers f64 solve accuracy with
+        # 'blocktridiag_f32' stores the factor in f32 (half the HBM and
+        # half the bytes on the apply scans) and recovers f64 solve accuracy with
         # iterative refinement against the matrix-free f64 operator.
         factor_fn = None
         self.grid_shape = grid_shape

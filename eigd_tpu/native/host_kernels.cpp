@@ -1,7 +1,7 @@
 // Host-side preprocessing kernels for eigd_tpu.
 //
 // The reference reaches native code through SciPy bindings (SuperLU, ARPACK,
-// cKDTree — SURVEY.md §2.3). On TPU the factorization and eigensolve live on
+// cKDTree — SURVEY.md §2.3). Here the factorization and eigensolve live on
 // the accelerator; what remains naturally host-side is mesh/graph setup, and
 // that is what this module provides, exposed through a plain C ABI for
 // ctypes:

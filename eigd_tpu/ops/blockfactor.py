@@ -1,10 +1,9 @@
 """Block-tridiagonal Cholesky factor for structured-grid problems.
 
-This is the TPU answer to SuperLU for the shift-invert factor at scale
+This is the on-device answer to SuperLU for the shift-invert factor at scale
 (SURVEY.md §7 hard part #1): a regular nx x ny grid ordered line-by-line
 makes A - sigma*B block tridiagonal with dense (b, b) blocks, b = ndof*(ny+1).
-The factorization is a lax.scan of dense block operations (potrf + GEMMs —
-pure MXU work); the block inverses are precomputed so every factor apply is a
+The factorization is a lax.scan of dense block operations (potrf + GEMMs); the block inverses are precomputed so every factor apply is a
 forward/backward scan of (b, b) x (b,) GEMMs with no triangular solves on the
 critical path.
 
@@ -127,7 +126,7 @@ class BlockTridiagFactor:
     def from_blocks(cls, D, E, store_dtype=None):
         """Factorize (in the blocks' dtype) and optionally store the factor
         in a narrower dtype (f32): halves HBM for the 2*nx*b^2-word factor
-        and runs the apply scans at f32 MXU rate; wrap with RefinedFactor
+        and runs the apply scans in f32; wrap with RefinedFactor
         to recover f64 solve accuracy via iterative refinement."""
         nb, b = D.shape[0], D.shape[1]
         eye = jnp.eye(b, dtype=D.dtype)
@@ -221,15 +220,13 @@ class BlockTridiagFactor:
 class BCRFactor:
     """Block cyclic reduction solver for SPD block-tridiagonal systems.
 
-    The scan-based BlockTridiagFactor is latency-bound on TPU: its apply is
-    2*nb sequential (b, b) GEMM steps (~40 us/step of loop+stream overhead
-    dwarfs the sub-ms of math at nb ~ 500). Cyclic reduction restructures
+    The scan-based BlockTridiagFactor is latency-bound: its apply is 2*nb
+    sequential (b, b) GEMM steps whose loop overhead dwarfs the math at
+    nb ~ 500. Cyclic reduction restructures
     the same solve into log2(nb) *levels*, each one batched Cholesky /
-    GEMM over all odd-indexed blocks at once — pure MXU work with ~18
-    kernel-sized steps instead of ~1000, at ~2.5x the flops. This is the
-    TPU-native answer to SuperLU's role in the reference (SURVEY.md §2.3,
-    hard part #1): measured ~10x faster per apply than the scan form at the
-    512x256-grid benchmark size.
+    GEMM over all odd-indexed blocks at once — ~18 kernel-sized steps
+    instead of ~1000, at ~2.5x the flops. This is the on-device answer to
+    SuperLU's role in the reference (SURVEY.md §2.3, hard part #1).
 
     Elimination at one level (row i: E_{i-1} x_{i-1} + D_i x_i +
     E_i^T x_{i+1} = f_i, E_i = A[i+1, i]):
@@ -249,7 +246,7 @@ class BCRFactor:
 
     @staticmethod
     def _inv_spd(Dblocks, jitter=0.0):
-        """Batched SPD inverse via Cholesky (MXU-friendly).
+        """Batched SPD inverse via Cholesky (batched GEMM work).
 
         jitter > 0 adds a relative diagonal regularization
         ``D + jitter * diag(D)`` before the Cholesky (Manteuffel shift).
@@ -386,7 +383,7 @@ class RefinedFactor:
         y_{k+1} = y_k + M32^{-1} (x - A y_k)
     Converges at rate ~kappa(A)*eps_f32 per step; the loop is a while_loop
     gated on the f64 residual (cap ``max_refine``). The heavy O(nx*b^2)
-    GEMM scans run at f32 MXU rate; the f64 work per step is one
+    GEMM scans run in f32; the f64 work per step is one
     matrix-free element matvec. This is the scheme the factor's cost model
     needs at scale: the stored factor is 2*nx*b^2 f32 words (e.g. ~5.7 GB
     at 1M DOF on a 700x700 grid) instead of f64 block inverses.
@@ -532,9 +529,8 @@ class PCGFactor:
         outer rounds' true-residual restarts then contract on.
 
         The loop runs entirely in f32 when the operator exposes element
-        data (r4): every iteration's residual matvec was the XLA-emulated
-        f64 element einsum — the dominant cost of the whole CRM pipeline —
-        while the f32 matvec's ~3e-6 relative backward error sits well
+        data: an f64 element einsum per iteration was the dominant cost of
+        the whole CRM pipeline, while the f32 matvec's ~3e-6 relative backward error sits well
         under the 1e-5 approx target. Falls back to the f64 loop for
         operators without .mats.
         """
@@ -543,8 +539,8 @@ class PCGFactor:
         return self._pcg(r, self.approx_tol, self.approx_maxiter)[0]
 
     def _pcg32(self, x, tol, maxiter):
-        """approx-channel PCG with f32 state, f32 element matvec (MXU
-        batched einsum instead of emulated f64), f32 preconditioner."""
+        """approx-channel PCG with f32 state, f32 element matvec (batched
+        einsum), f32 preconditioner."""
         from .operators import ElementOperator
 
         squeeze = x.ndim == 1

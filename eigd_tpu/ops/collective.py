@@ -5,7 +5,7 @@ single-device (plain reductions); a string names a ``shard_map`` mesh axis
 over which the DOF dimension of all long vectors is sharded. In that case
 each inner product over the DOF dimension is a local contraction followed by
 a ``psum`` over the axis — the tall-skinny-GEMM + all-reduce pattern that is
-the TPU-native replacement for the MPI domain decomposition the reference
+the on-device replacement for the MPI domain decomposition the reference
 reaches only through TACS (reference crm.py:11,71).
 """
 
@@ -29,11 +29,10 @@ def pdot(x, y, axis):
 def chunked_dot_f32(X, w, axis=None, chunk=8192):
     """(m, n) @ (n, p) contraction in f32 with f64 accumulation across n-chunks.
 
-    On TPU, a plain f32 matmul accumulates sequentially over ~n/128 tiles, so
-    its error floor is ~(n/128)*eps32 (~2.5e-4 at n=5e5). Splitting n into
-    ``chunk``-sized pieces, contracting each in f32, and summing the partials
-    in f64 drops the floor to ~(chunk/128)*eps32 (~4e-6 at chunk=8192) while
-    keeping f32 matmul throughput — the cheap-but-accurate inner product for
+    A plain f32 matmul may accumulate sequentially over long stretches of n,
+    with an error floor growing with n. Splitting n into ``chunk``-sized
+    pieces, contracting each in f32, and summing the partials in f64 bounds
+    the floor by the chunk length while keeping f32 matmul throughput — the cheap-but-accurate inner product for
     mixed-precision orthogonalization sweeps.
     """
     X = X.astype(jnp.float32)
@@ -46,9 +45,8 @@ def chunked_dot_f32(X, w, axis=None, chunk=8192):
         return psum(out, axis)
     # Batched dot with the chunk axis LEADING on both operands: the
     # canonical dot_general form that lowers to a tiled batched matmul.
-    # (An einsum with the batch axis in the middle of X was lowered by
-    # XLA:TPU as a broadcast-multiply — a (p, n, m) temporary, 13.5 GB at
-    # 1M DOF.) The (nch, m, chunk) transpose of X costs one m*n f32 copy
+    # (An einsum with the batch axis in the middle of X can lower to a
+    # broadcast-multiply with a (p, n, m) temporary.) The (nch, m, chunk) transpose of X costs one m*n f32 copy
     # at memory bandwidth. A non-divisible tail is contracted separately
     # and added in f64 — it must NOT silently fall back to one plain f32
     # GEMM over all of n, which loses the accuracy guarantee exactly at
@@ -65,179 +63,15 @@ def chunked_dot_f32(X, w, axis=None, chunk=8192):
     return psum(out, axis)
 
 
-def _product_dtype():
-    """Accumulation dtype of the split-kernel f32 GEMMs.
+def tdot(rows, h):
+    """rows^T @ h for a row-stored (r, n) block and a small (r, k) one.
 
-    On TPU the MXU computes f32 matmuls from exact bf16-pair products with
-    f32 accumulation, so the Dekker-split terms are exact up to accumulation
-    rounding. CPU f32 GEMMs round every product (no exact-product path), so
-    when the split path is forced on CPU (tests), products accumulate in f64
-    — this models the MXU semantics and makes the split *algebra* testable
-    against the native f64 product to ~1e-12.
+    Contracts the short leading dim directly, so no (n, r) transposed copy
+    of ``rows`` is formed. The (n, k) result is sharded over the DOF dim
+    like ``rows``, so no psum is needed.
     """
-    return jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
-
-
-def _chunked_f32_dot(A, Bm, chunk):
-    """f32 (m, n) @ (n, k) with f64 accumulation across n-chunks."""
-    m, n = A.shape
-    k = Bm.shape[1]
-    pet = _product_dtype()
-    nch = n // chunk
-    if nch < 2:
-        return jax.lax.dot_general(
-            A, Bm, (((1,), (0,)), ((), ())),
-            preferred_element_type=pet).astype(jnp.float64)
-    n_main = nch * chunk
-    Ar = A[:, :n_main].reshape(m, nch, chunk).transpose(1, 0, 2)
-    Br = Bm[:n_main].reshape(nch, chunk, k)
-    parts = jax.lax.dot_general(
-        Ar, Br, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=pet)
-    out = jnp.sum(parts.astype(jnp.float64), axis=0)
-    if n_main < n:
-        out = out + jax.lax.dot_general(
-            A[:, n_main:], Bm[n_main:], (((1,), (0,)), ((), ())),
-            preferred_element_type=pet).astype(jnp.float64)
-    return out
-
-
-def _split_or_pair(X, force_split=False):
-    """f64 array or (hi, lo) f32 pair -> (hi, lo) f32 pair, or None when
-    the native f64 product should be used (CPU fast path)."""
-    if isinstance(X, (tuple, list)):
-        return X[0].astype(jnp.float32), X[1].astype(jnp.float32)
-    if (jax.default_backend() == "cpu" and not force_split) \
-            or X.dtype != jnp.float64:
-        return None
-    Xh = X.astype(jnp.float32)
-    Xl = (X - Xh.astype(jnp.float64)).astype(jnp.float32)
-    return Xh, Xl
-
-
-def _combine_pair(X):
-    """(hi, lo) pair -> f64 array; arrays pass through."""
-    if isinstance(X, (tuple, list)):
-        return X[0].astype(jnp.float64) + X[1].astype(jnp.float64)
-    return X
-
-
-def dd_dot(X, w, axis=None, chunk=2048, force_split=False):
-    """f64-quality (m, n) @ (n, k) contraction at f32 MXU rate.
-
-    XLA:TPU's emulated f64 matmul runs at ~42 GFLOP/s (measured: 147 ms for
-    a (184, 1e6) x (1e6, 16) GEMM) AND materializes split f32 operand
-    copies, while its accuracy floor is ~7e-8 relative at n ~ 1e6 anyway.
-    This routine gets comparable accuracy ~50x faster: error-free Dekker
-    split of both operands into f32 (hi, lo) pairs handles the INPUT
-    rounding exactly (three f32 products; the lo*lo term is below 1e-14),
-    and fine-grained chunking with f64 partial sums bounds the ACCUMULATION
-    rounding at ~(chunk/128)*eps32 of a chunk's partial — ~1e-8 relative of
-    the total at chunk=512. Falls back to the native f64 matmul on CPU,
-    where that is exact and fast; ``force_split=True`` runs the split
-    kernel regardless of backend (so the TPU numerics are testable on CPU
-    against the native f64 product).
-
-    Either operand may be a pre-split (hi, lo) f32 pair (value hi + lo,
-    e.g. from ``dd_stencil_matvec_pair`` or a split-stored basis): the
-    per-call Dekker split of that operand — a full read + write of its
-    f64 bytes — is then skipped.
-    """
-    Xp = _split_or_pair(X, force_split)
-    if Xp is None and not isinstance(w, (tuple, list)):
-        return psum(_combine_pair(X) @ w, axis)
-    if Xp is None:  # CPU fast path with a pair w
-        return psum(_combine_pair(X) @ _combine_pair(w), axis)
-    Xh, Xl = Xp
-    if not isinstance(w, (tuple, list)) and w.dtype != jnp.float64:
-        wh, wl = w.astype(jnp.float32), None  # exact in f32 already
-    else:
-        wh, wl = _split_or_pair(w, force_split=True)
-    out = _chunked_f32_dot(Xh, wh, chunk) + _chunked_f32_dot(Xl, wh, chunk)
-    if wl is not None:
-        out = out + _chunked_f32_dot(Xh, wl, chunk)
-    return psum(out, axis)
-
-
-def dd_dot_rowsT(rows, h, force_split=False):
-    """f64-quality rows^T @ h for (rows, n) x (rows, k) -> (n, k) at f32
-    rate (small contraction dim): split-pair products, f64 sum. The
-    contraction is over the small rows dim, so no chunking is needed —
-    each f32 product accumulates only ~rows terms."""
-    if (jax.default_backend() == "cpu" and not force_split) \
-            or rows.dtype != jnp.float64:
-        return jax.lax.dot_general(rows, h, (((0,), (0,)), ((), ())),
-                                   preferred_element_type=rows.dtype)
-    h = h.astype(jnp.float64)
-    rh = rows.astype(jnp.float32)
-    rl = (rows - rh.astype(jnp.float64)).astype(jnp.float32)
-    hh = h.astype(jnp.float32)
-    hl = (h - hh.astype(jnp.float64)).astype(jnp.float32)
-
-    pet = _product_dtype()
-
-    def td(a, b):
-        return jax.lax.dot_general(a, b, (((0,), (0,)), ((), ())),
-                                   preferred_element_type=pet)
-
-    return (td(rh, hh).astype(jnp.float64)
-            + td(rh, hl).astype(jnp.float64)
-            + td(rl, hh).astype(jnp.float64))
-
-
-def dd_mul_small(X, M, force_split=False, out_pair=False):
-    """f64-quality X @ M for tall (n, p) x small (p, k) at f32 MXU rate.
-
-    The contraction dim p is small (a block width, <= ~32), so a single
-    f32 MXU pass accumulates exactly-split products over only p terms —
-    no chunking needed. Replaces f64 ``solve_triangular`` over (p, n)
-    right-hand sides (measured 16.8 ms per solve at n=1e6 on TPU's
-    emulated f64 — the caller inverts the small triangular factor once and
-    applies it here as a GEMM). Falls back to the native f64 product on
-    CPU; ``force_split=True`` tests the split algebra there.
-
-    X may be a pre-split (hi, lo) f32 pair. ``out_pair=True`` returns the
-    result as a compensated (hi, lo) f32 pair (2Sum of the three split
-    partials — pure f32, no emulated-f64 elementwise anywhere).
-    """
-    Xp = _split_or_pair(X, force_split)
-    if Xp is None:
-        out = _combine_pair(X) @ M
-        if out_pair:
-            oh = out.astype(jnp.float32)
-            return oh, (out - oh.astype(jnp.float64)).astype(jnp.float32)
-        return out
-    Xh, Xl = Xp
-    M = M.astype(jnp.float64)
-    Mh = M.astype(jnp.float32)
-    Ml = (M - Mh.astype(jnp.float64)).astype(jnp.float32)
-    pet = _product_dtype()
-
-    def d(a, b):
-        return jax.lax.dot_general(a, b, (((1,), (0,)), ((), ())),
-                                   preferred_element_type=pet)
-
-    p1, p2, p3 = d(Xh, Mh), d(Xh, Ml), d(Xl, Mh)
-    if not out_pair:
-        return (p1.astype(jnp.float64) + p2.astype(jnp.float64)
-                + p3.astype(jnp.float64))
-    if pet == jnp.float64:
-        # CPU models the MXU with exact f64 partials; split the exact sum
-        # so the pair carries it to f32-pair precision (a plain f32 cast
-        # of p1 would silently discard its low bits — measured 5.4e-8
-        # end-to-end gradient drift vs the combined path).
-        total = p1 + p2 + p3
-        s = total.astype(jnp.float32)
-        e = (total - s.astype(jnp.float64)).astype(jnp.float32)
-        return s, e
-    # TPU: partials are already f32; compensated f32 sum (p2, p3 are
-    # ~eps32 of p1, so Fast2Sum's |t| <= |p1| precondition holds)
-    t = p2 + p3
-    s = p1 + t
-    e = (p1 - s) + t
-    return s, e
-
-
+    return jax.lax.dot_general(rows, h, (((0,), (0,)), ((), ())),
+                               preferred_element_type=rows.dtype)
 
 
 def qr_tall(R, axis):

@@ -1,16 +1,16 @@
 """Shift-invert factorizations: ``factor(x) = (A - sigma*B)^{-1} x``.
 
 The reference's single hottest native kernel is SuperLU applied to the shifted
-matrix (eigenvector_derivatives.py:11-23; SURVEY.md §2.3). XLA:TPU has no f64
-LU, but it does have f64 Cholesky and eigh, so the TPU-native designs are:
+matrix (eigenvector_derivatives.py:11-23; SURVEY.md §2.3). The designs here
+use only f64 Cholesky and eigh, which every XLA backend has:
 
 * ``CholeskyFactor`` — dense Cholesky of the shifted matrix. Valid whenever the
   shifted matrix is SPD, which holds for sigma below the spectrum in "normal"
   mode (K - sigma*M with sigma < lam_min) and for buckling shifts below the
   first critical load (K + sigma*G). One O(n^3) factorization, then each apply
-  is two triangular solves — which XLA maps onto the MXU for blocked RHS.
+  is two triangular solves — blocked GEMM-like work for blocked RHS.
 * ``EighFactor`` — robust fallback for indefinite shifted matrices: factor via
-  a full symmetric eigendecomposition (f64 eigh is available on TPU).
+  a full symmetric eigendecomposition.
 * ``CGFactor`` — matrix-free conjugate-gradient "inexact factor" with a Jacobi
   preconditioner, for problems too large to densify; tolerances integrate with
   the adjoint solvers exactly as an exact factor does.

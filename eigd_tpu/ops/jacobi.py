@@ -6,13 +6,13 @@ residuals bottom out around 1e-7 for f64 on this stack (measured; LAPACK gives
 amplified into the full-space eigenvectors, so eigd_tpu polishes the XLA
 result with a few sweeps of **parallel-order cyclic Jacobi**: round-robin
 pairings give m/2 disjoint (p, q) rotations per round, each round is applied
-as one (m, m) x (m, m) GEMM — pure MXU work, quadratically convergent, and
+as one (m, m) x (m, m) GEMM — quadratically convergent, and
 backward-stable. Starting from the XLA eigenbasis the matrix is already
 near-diagonal, so 2-3 sweeps reach working precision.
 
 This replaces the role LAPACK ``dsyev`` plays in the reference
-(/root/reference/eigd/eigenvector_derivatives.py:1394, 1414) with a
-TPU-native kernel instead of a host callback.
+(eigd/eigenvector_derivatives.py:1394, 1414) with an on-device kernel
+instead of a host callback.
 """
 
 from __future__ import annotations
@@ -70,9 +70,8 @@ def jacobi_polish(Hmat, theta0, Y0, sweeps=3):
         app = M[p, p]
         aqq = M[q, q]
         apq = M[p, q]
-        # Jacobi rotation angle. TPU f64 is emulated with f32 pairs, so the
-        # dynamic range is that of f32 (~1e38): tau**2 overflows for
-        # |tau| > ~1e19. Use the asymptotic t ~ 1/(2 tau) in that regime and
+        # Jacobi rotation angle. tau**2 overflows for huge |tau| on
+        # backends whose f64 has f32 range; use the asymptotic t ~ 1/(2 tau) in that regime and
         # guard the already-diagonal case.
         small = jnp.abs(apq) <= 1e-30 * (jnp.abs(app) + jnp.abs(aqq) + 1e-30)
         tau = (aqq - app) / jnp.where(small, 1.0, 2.0 * apq)
@@ -107,7 +106,7 @@ def jacobi_polish(Hmat, theta0, Y0, sweeps=3):
 
 
 def eigh_accurate(Hmat, sweeps=3):
-    """Symmetric eigendecomposition at working precision on TPU.
+    """Symmetric eigendecomposition at working precision.
 
     jnp.linalg.eigh for the bulk diagonalization + Jacobi polish for the last
     ~9 digits. Returns (theta, Y) ascending.

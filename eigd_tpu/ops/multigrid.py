@@ -7,9 +7,9 @@ block-tridiagonal / cyclic-reduction factors store O(nx * b^2) words
 block stencil of A - sigma*B at every level of a coarsening hierarchy
 (~sum 4^-l * 36 * ndof^2 * n words ~ 200 MB f32 at 1M DOF).
 
-Design (TPU-first):
+Design:
 * All level operators are ``stencil_matvec`` applications — shifted
-  elementwise block products, pure VPU work at memory bandwidth, no gathers.
+  elementwise block products, no gathers.
 * Coarse operators are the exact Galerkin products A_c = P^T A_f P for
   bilinear interpolation P, computed by *comb probing*: 16 phase combs per
   dof are pushed through P -> A_f -> P^T, and the coarse 9-point stencil is
@@ -18,7 +18,7 @@ Design (TPU-first):
 * Smoother: pointwise-Jacobi-preconditioned Chebyshev (degree nu), no inner
   products at apply time; lambda_max(D^-1 A) per level estimated once at
   build by power iteration.
-* The V-cycle runs entirely in f32 (the MXU/VPU-rate dtype); ``mv`` solves
+* The V-cycle runs entirely in f32 (half the bytes of f64); ``mv`` solves
   to f64 accuracy by flexible PCG in f64 with the f32 V-cycle as the
   preconditioner (inner products and residuals in f64, preconditioner
   applies in f32); ``approx_mv`` is a short f32 PCG for mixed-precision
@@ -42,36 +42,6 @@ from .stencil import stencil_matvec
 # ---------------------------------------------------------------------------
 # Grid transfer operators: bilinear prolongation and its exact transpose
 # ---------------------------------------------------------------------------
-
-
-@partial(jax.jit, static_argnums=(1, 2))
-def prolong_planes(g, nxc, nyc):
-    """Bilinear interpolation coarse -> fine in channel-plane layout:
-    g is (ndof, k, nxc+1, nyc+1); see ``prolong`` for the vector-layout
-    semantics."""
-    nxf, nyf = 2 * nxc, 2 * nyc
-    lead = g.shape[:2]
-    gi = jnp.zeros(lead + (nxf + 1, nyc + 1), dtype=g.dtype)
-    gi = gi.at[:, :, 0::2].set(g)
-    gi = gi.at[:, :, 1::2].set(0.5 * (g[:, :, :-1] + g[:, :, 1:]))
-    gf = jnp.zeros(lead + (nxf + 1, nyf + 1), dtype=g.dtype)
-    gf = gf.at[:, :, :, 0::2].set(gi)
-    gf = gf.at[:, :, :, 1::2].set(0.5 * (gi[:, :, :, :-1] + gi[:, :, :, 1:]))
-    return gf
-
-
-@partial(jax.jit, static_argnums=(1, 2))
-def restrict_planes(g, nxc, nyc):
-    """Exact transpose of ``prolong_planes``; g is (ndof, k, 2nxc+1, 2nyc+1)."""
-    odd_j = g[:, :, :, 1::2]
-    gj = g[:, :, :, 0::2] + 0.5 * (
-        jnp.pad(odd_j, ((0, 0), (0, 0), (0, 0), (0, 1)))
-        + jnp.pad(odd_j, ((0, 0), (0, 0), (0, 0), (1, 0))))
-    odd_i = gj[:, :, 1::2]
-    gc = gj[:, :, 0::2] + 0.5 * (
-        jnp.pad(odd_i, ((0, 0), (0, 0), (0, 1), (0, 0)))
-        + jnp.pad(odd_i, ((0, 0), (0, 0), (1, 0), (0, 0))))
-    return gc
 
 
 @partial(jax.jit, static_argnums=(1, 2, 3))
@@ -161,9 +131,9 @@ def galerkin_coarse_stencil(Wf, nxf, nyf, ndof):
                                 nxf, nyf, ndof), nxc, nyc, ndof)
     U = u.reshape(nxc + 1, nyc + 1, ndof, 4, 4, ndof)  # [I, J, a, p, q, b]
 
-    # Extraction as masked phase sums (einsum over one-hot phase masks):
-    # a general gather here is pathologically slow on TPU, and these arrays
-    # are tiny (the einsum does 16x the minimal work on O(n_coarse) data).
+    # Extraction as masked phase sums (einsum over one-hot phase masks)
+    # instead of a general gather; these arrays are tiny (the einsum does
+    # 16x the minimal work on O(n_coarse) data).
     Wc = jnp.zeros((nxc + 1, nyc + 1, 3, 3, ndof, ndof), dtype=dtype)
     for di in (-1, 0, 1):
         for dj in (-1, 0, 1):
@@ -229,11 +199,10 @@ def cheb_smooth(W, dinv, lmax, x, b, nx, ny, ndof, degree=3,
     """Chebyshev iteration for D^-1 A on [lo_frac*lmax, 1.02*lmax].
 
     Standard three-term recurrence on the preconditioned residual; no inner
-    products (TPU-friendly: every step is one stencil matvec + AXPYs).
+    products (every step is one stencil matvec + AXPYs).
 
     ``barrier=True`` pins every stencil matvec behind
-    ``lax.optimization_barrier`` — the mitigation for the observed XLA:TPU
-    large-program miscompile of fused V-cycle subgraphs (see GridMGFactor).
+    ``lax.optimization_barrier`` (see GridMGFactor's "barrier" variant).
     """
     ob = jax.lax.optimization_barrier if barrier else (lambda v: v)
     lmin = lo_frac * lmax
@@ -256,33 +225,11 @@ def cheb_smooth(W, dinv, lmax, x, b, nx, ny, ndof, degree=3,
     return x
 
 
-def cheb_smooth_planes(mv, dinvp, lmax, x, b, degree=3, lo_frac=0.25):
-    """Chebyshev smoother in channel-plane layout; ``mv`` is the level
-    matvec on (ndof, k, X, Y) planes, ``dinvp`` the Jacobi diagonal inverse
-    as (ndof, 1, X, Y). ``x=None`` means a zero initial iterate (skips the
-    first matvec)."""
-    lmin = lo_frac * lmax
-    lmax = 1.02 * lmax
-    theta = 0.5 * (lmax + lmin)
-    delta = 0.5 * (lmax - lmin)
-    sigma1 = theta / delta
-    rho = 1.0 / sigma1
-
-    r = b if x is None else b - mv(x)
-    d = dinvp * r / theta
-    x = d if x is None else x + d
-    for _ in range(degree - 1):
-        rho_new = 1.0 / (2.0 * sigma1 - rho)
-        r = b - mv(x)
-        d = rho_new * rho * d + (2.0 * rho_new / delta) * (dinvp * r)
-        x = x + d
-        rho = rho_new
-    return x
-
-
 # ---------------------------------------------------------------------------
 # The factor
 # ---------------------------------------------------------------------------
+
+VCYCLE_VARIANTS = ("plain", "barrier", "f64")
 
 
 @jax.tree_util.register_pytree_node_class
@@ -297,15 +244,13 @@ class GridMGFactor:
 
     def __init__(self, Ws, dinvs, lmaxs, coarse_inv, W64, shapes, ndof,
                  degree=3, rtol=1e-13, maxiter=60, approx_rtol=1e-5,
-                 approx_maxiter=18, stag_bad=2, vcycle="plain", Wps=None,
-                 Wdd=None, sweep_rtol=None, sweep_maxiter=None):
+                 approx_maxiter=18, stag_bad=2, vcycle="plain",
+                 sweep_rtol=None, sweep_maxiter=None):
         self.Ws = tuple(Ws)  # f32 stencils, fine -> coarse
         self.dinvs = tuple(dinvs)
         self.lmaxs = tuple(lmaxs)
         self.coarse_inv = coarse_inv  # (nc, nc) dense inverse, f32
         self.W64 = W64  # fine stencil, f64 (or None for f32-only problems)
-        self.Wps = None if Wps is None else tuple(Wps)  # pallas planes
-        self.Wdd = Wdd  # dd-split fine stencil planes (pallas f64 matvec)
         self.shapes = tuple(tuple(s) for s in shapes)  # [(nx, ny), ...]
         self.ndof = ndof
         self.degree = degree
@@ -316,9 +261,8 @@ class GridMGFactor:
         # Separate tolerances for the forward-sweep apply channel
         # (``sweep_mv``): the forward Lanczos sweep wants the f32 solve
         # driven to its machine floor (rtol 0.0 — the FD-verification
-        # noise floor of the objective tracks the sweep apply quality,
-        # measured 263k r3: fd_rel 5.8e-6 at approx_rtol 1e-5 vs 4.1e-7
-        # at the floor), while the adjoint's mixed ladder keeps the cheap
+        # noise floor of the objective tracks the sweep apply quality),
+        # while the adjoint's mixed ladder keeps the cheap
         # approx_rtol solves (its outer rounds restart on true residuals,
         # so ladder quality only trades steps per round). None = inherit
         # the approx_* values (sweep_mv == approx_mv).
@@ -327,21 +271,11 @@ class GridMGFactor:
         self.stag_bad = stag_bad  # consecutive plateau iterations before
         # the PCG stagnation exit fires; large value = exit on tol/maxiter
         # only
-        # V-cycle implementation variant:
-        #   "pallas"  — channel-plane-layout V-cycle with the Pallas stencil
-        #               kernel for every f32 level matvec (measured 33x the
-        #               XLA matvec at 1M DOF). Doubles as the miscompile
-        #               fix: pallas_call is opaque to XLA fusion, so the
-        #               V-cycle cannot be cross-fused into the enclosing
-        #               program (the r2 1M-DOF corruption mechanism).
-        #               Falls back to interpret mode off-TPU.
+        # V-cycle implementation variant (see ``_vcycle``):
         #   "plain"   — straight-line XLA recursion
         #   "barrier" — optimization_barrier around every smoother matvec
-        #               and V-cycle stage edge (miscompile mitigation)
-        #   "f64"     — run the whole V-cycle in f64 (different program
-        #               shape; ~2x the V-cycle cost; miscompile mitigation)
-        #   "auto"    — "pallas" on TPU, "plain" elsewhere (resolved in
-        #               ``build``)
+        #               and V-cycle stage edge
+        #   "f64"     — run the whole V-cycle in f64 (~2x the V-cycle cost)
         self.vcycle = vcycle
 
     # -- construction -------------------------------------------------------
@@ -349,20 +283,14 @@ class GridMGFactor:
     @classmethod
     def build(cls, W, grid_shape, ndof, min_coarse=2048, degree=3,
               rtol=1e-13, maxiter=60, approx_rtol=1e-5, approx_maxiter=18,
-              stag_bad=2, vcycle="auto", dd=True, sweep_rtol=None,
+              stag_bad=2, vcycle="plain", sweep_rtol=None,
               sweep_maxiter=None):
         """W: fine-level stencil (f64 or f32) of the SPD shifted operator.
-
-        ``dd`` (pallas variant only): run the outer-PCG f64 residual matvec
-        on the compensated double-float Pallas kernel (~1e-14 relative
-        backward error per matvec) instead of XLA's software-emulated f64
-        (~21.9 ms at 1M DOF). The dd floor times the shifted operator's
-        condition number bounds the achievable apply accuracy — irrelevant
-        at production rtol (1e-11), but for tiny ill-conditioned problems
-        needing 1e-13 applies pass dd=False.
+        ``vcycle``: one of ``VCYCLE_VARIANTS``.
         """
-        if vcycle == "auto":
-            vcycle = "pallas" if jax.default_backend() == "tpu" else "plain"
+        if vcycle not in VCYCLE_VARIANTS:
+            raise ValueError(f"GridMGFactor: unknown vcycle {vcycle!r}; "
+                             f"expected one of {VCYCLE_VARIANTS}")
         W64 = W if W.dtype == jnp.float64 else None
         Wl = W.astype(jnp.float32)
         nx, ny = grid_shape
@@ -405,27 +333,10 @@ class GridMGFactor:
         eye = jnp.eye(Ac.shape[0], dtype=Ac.dtype)
         Linv = solve_triangular(L, eye, lower=True)
         coarse_inv = Linv.T @ Linv
-        Wps = None
-        Wdd = None
-        if vcycle == "pallas":
-            from .pallas_stencil import stencil_planes, stencil_planes_dd
-
-            # coarsest level excluded: it is solved densely, never
-            # matvec'd — EXCEPT a single-level hierarchy (tiny grid under
-            # min_coarse), where level 0 is both the PCG residual matvec
-            # level and the dense coarse solve
-            Wps = tuple(stencil_planes(Wl_, ndof)
-                        for Wl_ in (Ws[:-1] if len(Ws) > 1 else Ws))
-            if W64 is not None and dd:
-                # dd-split fine stencil: the outer-PCG f64 residual matvec
-                # runs on the compensated f32 Pallas kernel (~1e-12
-                # backward error) instead of XLA's emulated f64 (measured
-                # 21.9 ms -> see dd_stencil_matvec)
-                Wdd = stencil_planes_dd(W64, ndof)
         return cls(Ws, dinvs, lmaxs, coarse_inv, W64, shapes, ndof,
                    degree=degree, rtol=rtol, maxiter=maxiter,
                    approx_rtol=approx_rtol, approx_maxiter=approx_maxiter,
-                   stag_bad=stag_bad, vcycle=vcycle, Wps=Wps, Wdd=Wdd,
+                   stag_bad=stag_bad, vcycle=vcycle,
                    sweep_rtol=sweep_rtol, sweep_maxiter=sweep_maxiter)
 
     # -- V-cycle -------------------------------------------------------------
@@ -436,12 +347,9 @@ class GridMGFactor:
         ``self.vcycle`` selects the implementation: "plain" is the
         straight-line recursion; "barrier" pins every smoother matvec and
         stage edge behind ``lax.optimization_barrier``; "f64" runs all
-        levels in f64. The latter two exist because XLA:TPU has been
-        observed (r2, 1M DOF) to miscompile the f32 V-cycle subgraph when
-        it is fused into certain large enclosing programs — the apply then
-        *expands* the residual (contraction ~22 vs 0.027 measured in the
-        same program on the same factor) while every build artifact is
-        bit-identical.
+        levels in f64. The latter two are different program shapes of the
+        same math, kept as fallbacks should a compiler mis-fuse the f32
+        V-cycle subgraph inside a large enclosing program.
         """
         barrier = self.vcycle == "barrier"
         ob = jax.lax.optimization_barrier if barrier else (lambda v: v)
@@ -462,51 +370,8 @@ class GridMGFactor:
         return cheb_smooth(W, dinv, lmax, x, b, nx, ny, self.ndof,
                            degree=self.degree, barrier=barrier)
 
-    @staticmethod
-    def _pallas_interpret():
-        # trace-time backend check: real Mosaic kernels on TPU, interpreter
-        # everywhere else (CPU tests / virtual meshes)
-        return jax.default_backend() != "tpu"
-
-    def _dinv_planes(self, lvl):
-        nx, ny = self.shapes[lvl]
-        return self.dinvs[lvl].reshape(nx + 1, ny + 1,
-                                       self.ndof).transpose(2, 0, 1)[:, None]
-
-    def _vcycle_planes(self, lvl, b, interpret):
-        """One f32 V-cycle in channel-plane layout ((ndof, k, X, Y)) with
-        Pallas level matvecs; b enters/leaves in plane layout."""
-        from .pallas_stencil import from_planes, matvec_planes, to_planes
-
-        nx, ny = self.shapes[lvl]
-        if lvl == len(self.Ws) - 1:
-            bf = from_planes(b, nx, ny, self.ndof)
-            return to_planes(self.coarse_inv @ bf, nx, ny, self.ndof)
-        Wp, lmax = self.Wps[lvl], self.lmaxs[lvl]
-        dinvp = self._dinv_planes(lvl)
-
-        def mv(xq):
-            return matvec_planes(Wp, xq, nx, ny, self.ndof,
-                                 interpret=interpret)
-
-        x = cheb_smooth_planes(mv, dinvp, lmax, None, b, degree=self.degree)
-        r = b - mv(x)
-        xc = self._vcycle_planes(lvl + 1,
-                                 restrict_planes(r, nx // 2, ny // 2),
-                                 interpret)
-        x = x + prolong_planes(xc, nx // 2, ny // 2)
-        return cheb_smooth_planes(mv, dinvp, lmax, x, b, degree=self.degree)
-
     def _apply_vcycle32(self, r):
-        """One f32 V-cycle preconditioner apply on (n, k) vector-layout r,
-        dispatching on the configured implementation variant."""
-        if self.vcycle == "pallas":
-            from .pallas_stencil import from_planes, to_planes
-
-            nx, ny = self.shapes[0]
-            rq = to_planes(r.astype(jnp.float32), nx, ny, self.ndof)
-            zq = self._vcycle_planes(0, rq, self._pallas_interpret())
-            return from_planes(zq, nx, ny, self.ndof)
+        """One f32 V-cycle preconditioner apply on (n, k) r."""
         return self._vcycle(0, r.astype(jnp.float32))
 
     # -- PCG drivers ----------------------------------------------------------
@@ -543,28 +408,14 @@ class GridMGFactor:
             # returns. (Observed once: an XLA:CPU fusion bug corrupted the
             # V-cycle output only when inlined next to this while_loop in a
             # fori_loop body — this restructuring avoids that composition
-            # and the guard makes any recurrence of it slow, not wrong.
-            # TPU is unaffected.)
-            # optimization_barrier on both sides: the V-cycle output has
-            # been observed (r2, TPU, 1M DOF) to be deterministically
-            # corrupted when XLA fuses/reorders it into a large enclosing
-            # program (forward+adjoint jits): the inner PCG then sees a
-            # garbage preconditioner, stagnates at O(1) residual in ~3
-            # iterations, and every factor apply silently returns junk —
-            # the whole-eigensolve "wrong nearby spectrum" failure. The
-            # barriers pin the V-cycle's inputs/outputs so its computation
-            # cannot be cross-fused with the surrounding loop body.
-            if self.vcycle == "pallas":
-                # pallas_call is already a fusion barrier; the explicit
-                # barriers stay to pin the layout conversions with it
-                rp = jax.lax.optimization_barrier(r)
-                zp = jax.lax.optimization_barrier(self._apply_vcycle32(rp))
-            else:
-                pdt = jnp.float64 if (self.vcycle == "f64"
-                                      and dtype == jnp.float64
-                                      ) else jnp.float32
-                rp = jax.lax.optimization_barrier(r.astype(pdt))
-                zp = jax.lax.optimization_barrier(self._vcycle(0, rp))
+            # and the guard makes any recurrence of it slow, not wrong.)
+            # optimization_barrier on both sides pins the V-cycle's inputs
+            # and outputs so its computation cannot be cross-fused with the
+            # surrounding loop body.
+            pdt = jnp.float64 if (self.vcycle == "f64"
+                                  and dtype == jnp.float64) else jnp.float32
+            rp = jax.lax.optimization_barrier(r.astype(pdt))
+            zp = jax.lax.optimization_barrier(self._vcycle(0, rp))
             z = zp.astype(dtype)
             rz = jnp.sum(r * z, axis=0)
             ok = rz > 0.0
@@ -618,111 +469,16 @@ class GridMGFactor:
             cond, body, carry)
         return x, {"niter": k_end, "res2": r2, "tol2": tol2}
 
-    def _pcg_planes(self, bb, rtol, maxiter):
-        """f32 flexible PCG entirely in channel-plane layout (pallas
-        variant): the V-cycle preconditioner and the stencil matvec both
-        consume/produce (ndof, k, X, Y) planes, so the per-iteration
-        (X, Y, ndof, k) layout transposes of the vector-layout ``_pcg`` —
-        measured ~36% of each f32 iteration at 263k DOF
-        (scripts/diag_vcycle_levels.py) — happen once per SOLVE instead of
-        4x per iteration. Same math, same convergence control as ``_pcg``
-        (per-column freeze, flexible beta, stagnation exit).
-
-        bb: (n, k) f32. Returns (x, info) in vector layout.
-        """
-        from .pallas_stencil import from_planes, matvec_planes, to_planes
-
-        nx, ny = self.shapes[0]
-        interp = self._pallas_interpret()
-        bq = to_planes(bb, nx, ny, self.ndof)
-
-        def mv(xq):
-            return matvec_planes(self.Wps[0], xq, nx, ny, self.ndof,
-                                 interpret=interp)
-
-        def col_sum(pq, qq):
-            return jnp.sum(pq * qq, axis=(0, 2, 3))
-
-        def M(rq):
-            rp = jax.lax.optimization_barrier(rq)
-            zq = jax.lax.optimization_barrier(
-                self._vcycle_planes(0, rp, interp))
-            rz = col_sum(rq, zq)
-            ok = rz > 0.0
-            return (jnp.where(ok[None, :, None, None], zq, rq),
-                    jnp.where(ok, rz, col_sum(rq, rq)))
-
-        b2 = col_sum(bq, bq)
-        tol2 = (rtol * rtol) * jnp.maximum(b2, 1e-300)
-
-        # M(b) initial guess: measured at 1M DOF k=8 this trades exactly
-        # one PCG iteration (niter 4 -> 3 at approx_rtol) for its
-        # V-cycle + matvec — a wash in wall time, kept for the slightly
-        # better final residual it lands (0.48 vs 0.62 of tol).
-        x, _ = M(bq)
-        r = bq - mv(x)
-        z, rz = M(r)
-        p = z
-
-        def cond(carry):
-            k, x, r, z, p, rz, r2, best, bad = carry
-            active = r2 > tol2
-            return ((k < maxiter) & jnp.any(active)
-                    & (bad < self.stag_bad))
-
-        def body(carry):
-            k, x, r, z, p, rz, r2, best, bad = carry
-            Ap = mv(p)
-            pAp = col_sum(p, Ap)
-            active = (r2 > tol2).astype(jnp.float32)
-            alpha = jnp.where(pAp > 0, rz / jnp.where(pAp > 0, pAp, 1.0),
-                              0.0) * active
-            x = x + p * alpha[None, :, None, None]
-            r_new = r - Ap * alpha[None, :, None, None]
-            z, rz_new = M(r_new)
-            rz_flex = rz_new - col_sum(r, z)
-            beta = jnp.where(rz != 0.0, rz_flex / jnp.where(rz != 0.0, rz,
-                                                            1.0), 0.0)
-            p = z + p * beta[None, :, None, None]
-            r2n = col_sum(r_new, r_new)
-            improving = jnp.sum(r2n) < 0.9 * best
-            bad = jnp.where(improving, 0, bad + 1)
-            best = jnp.minimum(best, jnp.sum(r2n))
-            return k + 1, x, r_new, z, p, rz_new, r2n, best, bad
-
-        r2_0 = col_sum(r, r)
-        carry = (jnp.asarray(0), x, r, z, p, rz, r2_0, jnp.sum(r2_0),
-                 jnp.asarray(0))
-        k_end, x, _, _, _, _, r2, _, _ = jax.lax.while_loop(
-            cond, body, carry)
-        return (from_planes(x, nx, ny, self.ndof),
-                {"niter": k_end, "res2": r2, "tol2": tol2})
-
     def _pcg32(self, bb, rtol, maxiter):
-        """f32 PCG dispatch: plane-resident on the pallas variant, the
-        vector-layout ``_pcg`` otherwise."""
-        if self.vcycle == "pallas":
-            return self._pcg_planes(bb, rtol, maxiter)
+        """f32 PCG with the f32 fine stencil as the residual matvec."""
         return self._pcg(bb, self._matvec32, rtol, maxiter)
 
     def _matvec64(self, x):
         nx, ny = self.shapes[0]
-        if self.Wdd is not None:
-            from .pallas_stencil import dd_stencil_matvec
-
-            return dd_stencil_matvec(self.Wdd, x, nx, ny, self.ndof,
-                                     interpret=self._pallas_interpret())
         return stencil_matvec(self.W64, x, nx, ny, self.ndof)
 
     def _matvec32(self, x):
         nx, ny = self.shapes[0]
-        if self.vcycle == "pallas":
-            from .pallas_stencil import from_planes, matvec_planes, to_planes
-
-            yq = matvec_planes(self.Wps[0], to_planes(x, nx, ny, self.ndof),
-                               nx, ny, self.ndof,
-                               interpret=self._pallas_interpret())
-            return from_planes(yq, nx, ny, self.ndof)
         return stencil_matvec(self.Ws[0], x, nx, ny, self.ndof)
 
     @property
@@ -740,10 +496,9 @@ class GridMGFactor:
 
         f64 path: flexible PCG in f64 with the f32 V-cycle as the
         preconditioner. (An iterative-refinement variant — f32 inner PCG
-        solves + f64 residual matvecs — was measured SLOWER at 1M DOF:
-        the V-cycle, not the f64 matvec, is the unit cost [76 ms vs 16 ms
-        in-graph], and refinement runs strictly more V-cycles for the same
-        final accuracy.)
+        solves + f64 residual matvecs — runs strictly more V-cycles for the
+        same final accuracy, and the V-cycle, not the f64 matvec, is the
+        unit cost.)
         """
         y, _ = self.mv_info(x)
         return y
@@ -764,13 +519,8 @@ class GridMGFactor:
                                     max(self.rtol, 1e-6), self.maxiter,
                                     x0=x0)
         else:
-            # the dd residual matvec has a ~1e-12 backward-error floor;
-            # don't gate the PCG below it (the stagnation exit would fire
-            # anyway, but this keeps reported convergence honest)
-            rtol_eff = (max(self.rtol, 2e-13) if self.Wdd is not None
-                        else self.rtol)
             y, info = self._pcg(x.astype(jnp.float64), self._matvec64,
-                                rtol_eff, self.maxiter, x0=x0)
+                                self.rtol, self.maxiter, x0=x0)
         if squeeze:
             y = y[:, 0]
         return y, info
@@ -826,7 +576,7 @@ class GridMGFactor:
 
     def tree_flatten(self):
         children = (self.Ws, self.dinvs, self.lmaxs, self.coarse_inv,
-                    self.W64, self.Wps, self.Wdd)
+                    self.W64)
         aux = (self.shapes, self.ndof, self.degree, self.rtol, self.maxiter,
                self.approx_rtol, self.approx_maxiter, self.sweep_rtol,
                self.sweep_maxiter, self.stag_bad,
@@ -835,11 +585,11 @@ class GridMGFactor:
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        Ws, dinvs, lmaxs, coarse_inv, W64, Wps, Wdd = children
+        Ws, dinvs, lmaxs, coarse_inv, W64 = children
         (shapes, ndof, degree, rtol, maxiter, approx_rtol, approx_maxiter,
          sweep_rtol, sweep_maxiter, stag_bad, vcycle) = aux
         return cls(Ws, dinvs, lmaxs, coarse_inv, W64, shapes, ndof,
                    degree=degree, rtol=rtol, maxiter=maxiter,
                    approx_rtol=approx_rtol, approx_maxiter=approx_maxiter,
-                   stag_bad=stag_bad, vcycle=vcycle, Wps=Wps, Wdd=Wdd,
+                   stag_bad=stag_bad, vcycle=vcycle,
                    sweep_rtol=sweep_rtol, sweep_maxiter=sweep_maxiter)

@@ -1,10 +1,10 @@
 """Linear operators for eigd_tpu.
 
 The reference (smdogroup/eigd) keeps matrices as SciPy CSR and factors them
-with SuperLU (eigenvector_derivatives.py:11-23). On TPU the natural
+with SuperLU (eigenvector_derivatives.py:11-23). On device the natural
 representations are
 
-* ``DenseOperator`` — an explicit (n, n) matrix; matvec is one MXU GEMM. Used
+* ``DenseOperator`` — an explicit (n, n) matrix; matvec is one GEMM. Used
   for small/medium problems and as the input to the dense Cholesky factor.
 * ``ElementOperator`` — finite-element form: a batch of per-element dense
   matrices plus a DOF map. matvec = gather -> batched-GEMM -> segment_sum; this
@@ -13,7 +13,7 @@ representations are
 
 All operators are registered pytrees so they can cross jit boundaries and be
 differentiated through; ``mv`` accepts both vectors (n,) and blocks (n, k) —
-blocked matvecs are the main MXU win identified in SURVEY.md §2.4.
+blocked matvecs are the main matrix-unit win identified in SURVEY.md §2.4.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class ElementOperator:
     n : global number of DOFs (static).
 
     The matvec is a gather, a batched (nelems, d, d) x (nelems, d, k) einsum
-    (MXU-batched), and a segment-sum scatter — the TPU-native equivalent of the
+    (batched), and a segment-sum scatter — the on-device equivalent of the
     reference's COO->CSR assembly + CSR matvec (natural_frequency.py:157-158).
     """
 
@@ -174,7 +174,7 @@ def as_operator(obj) -> Operator:
 def reduce_operator_dense(op: Operator, free: jax.Array) -> DenseOperator:
     """Apply Dirichlet BC reduction by extracting the free-free block.
 
-    TPU-native equivalent of the reference's reduce_matrix
+    On-device equivalent of the reference's reduce_matrix
     (buckling.py:499-528): instead of deleting CSR rows/cols we gather the
     free-index submatrix of the dense form.
     """

@@ -1,4 +1,4 @@
-"""Thick-restart shift-invert Lanczos: the TPU-native equivalent of the
+"""Thick-restart shift-invert Lanczos: the on-device equivalent of the
 reference's ARPACK/IRAM path (/root/reference/eigd/eigenvector_derivatives.py
 :1873-2207 and arpack.py).
 

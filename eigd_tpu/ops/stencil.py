@@ -1,15 +1,13 @@
 """Structured-grid stencil operators: gather/scatter-free FE matvecs.
 
-On TPU, the generic ``ElementOperator`` matvec (gather -> batched GEMM ->
-segment_sum) is dominated by the gather/scatter lowering (measured ~100 ms
-per f64 matvec at a 512x256 grid vs ~3 ms of useful data movement). On the
-regular grids of every example problem, the assembled operator is a 9-point
-nodal stencil with (ndof, ndof) coupling blocks, so the matvec can be nine
-shifted elementwise block-products on an (nx+1, ny+1, ndof) grid layout —
-pure VPU work at memory bandwidth, no gather anywhere. This is the
-TPU-native answer to the reference's CSR matvec (natural_frequency.py:
-157-158), following the structured-stencil guidance of the TPU programming
-guide.
+The generic ``ElementOperator`` matvec (gather -> batched GEMM ->
+segment_sum) spends its time in gathers and scatters. On the regular grids of
+every example problem the assembled operator is a 9-point nodal stencil with
+(ndof, ndof) coupling blocks, so the matvec is nine shifted elementwise
+block-products on an (nx+1, ny+1, ndof) grid layout, no gather anywhere. This
+replaces the reference's CSR matvec (natural_frequency.py:157-158). On the
+GPU it runs as a Pallas kernel (stencil_kernel.py): XLA's fusion of the plain
+form reached only 15-20% of the HBM bound on the H100.
 
 The stencil is *assembled from the element matrices with 16 static
 slice-adds* (one per corner pair), so the whole build is differentiable and
@@ -26,6 +24,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax.custom_derivatives import SymbolicZero
 
 # corner -> (di, dj) within the element
 _CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
@@ -49,22 +48,59 @@ def stencil_from_elements(emats, nx, ny, ndof):
     return W
 
 
+def use_kernel(backend, W, x):
+    """Whether ``stencil_matvec`` runs the Pallas kernel: on the GPU
+    backend, for operands of one dtype. On the H100 the kernel ran each
+    matvec 1.6-3.5x faster than the XLA fusion and cut the 263k and 1M
+    gradient wall times by 18% and 27% (PERF.md). Everywhere else the plain
+    XLA form runs."""
+    return backend == "gpu" and W.dtype == x.dtype
+
+
 @partial(jax.jit, static_argnums=(2, 3, 4))
 def stencil_matvec(W, x, nx, ny, ndof):
     """y = A x with the 9-point block stencil; x is (n,) or (n, k).
 
-    The (ndof, ndof) block products are unrolled into explicit broadcasted
-    multiply-adds: XLA's f64-emulation of small batched einsums is
-    pathologically slow on TPU (measured ~20x), while plain elementwise
-    f64 ops lower well.
-
     jit-wrapped (inlined by XLA when called inside an enclosing jit) so the
-    ~170-indexing-op body is traced once per (shape, dtype) signature
-    instead of at every V-cycle trace site — the smoother unrolls mean a
-    single enclosing solve traces this function dozens of times, and the
-    fancy-indexing trace cost (~70 ms each) dominated suite/compile wall
-    time before caching.
+    body is traced once per (shape, dtype) signature instead of at every
+    V-cycle trace site. Differentiable in W and x on either path.
     """
+    if use_kernel(jax.default_backend(), W, x):
+        return stencil_matvec_kernel(W, x, nx, ny, ndof)
+    return stencil_matvec_xla(W, x, nx, ny, ndof)
+
+
+@partial(jax.custom_jvp, nondiff_argnums=(2, 3, 4, 5))
+def stencil_matvec_kernel(W, x, nx, ny, ndof, interpret=False):
+    """``stencil_matvec`` on the Pallas kernel (ops/stencil_kernel.py).
+
+    The kernel has no derivative rules of its own; the operator is
+    bilinear in (W, x), so the tangent is two plain-XLA stencil matvecs,
+    which JAX can also transpose for reverse mode.
+    """
+    from .stencil_kernel import stencil_matvec_pallas
+
+    return stencil_matvec_pallas(W, x, nx, ny, ndof, interpret=interpret)
+
+
+@partial(stencil_matvec_kernel.defjvp, symbolic_zeros=True)
+def _stencil_matvec_kernel_jvp(nx, ny, ndof, interpret, primals, tangents):
+    W, x = primals
+    dW, dx = tangents
+    y = stencil_matvec_kernel(W, x, nx, ny, ndof, interpret)
+    dy = jnp.zeros_like(y)
+    if not isinstance(dW, SymbolicZero):
+        dy = dy + stencil_matvec_xla(dW, x, nx, ny, ndof)
+    if not isinstance(dx, SymbolicZero):
+        dy = dy + stencil_matvec_xla(W, dx, nx, ny, ndof)
+    return y, dy
+
+
+@partial(jax.jit, static_argnums=(2, 3, 4))
+def stencil_matvec_xla(W, x, nx, ny, ndof):
+    """Plain-XLA ``stencil_matvec``: nine shifted slices of the padded x
+    times the (ndof, ndof) blocks, unrolled into explicit broadcasted
+    multiply-adds."""
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -100,8 +136,7 @@ class GridStencilOperator:
     ``to_dense`` keep working unchanged.
     """
 
-    def __init__(self, mats, dofs, n, W, grid_shape, ndof=2, extra_diag=None,
-                 Wps=None, Wdd=None, interpret=False):
+    def __init__(self, mats, dofs, n, W, grid_shape, ndof=2, extra_diag=None):
         self.mats = mats  # (nelems, d, d) element matrices
         self.dofs = dofs  # (nelems, d) global DOF map
         self.n = n
@@ -111,10 +146,6 @@ class GridStencilOperator:
         # kept separately so factor builders working from the element
         # matrices can re-apply it (e.g. unit diagonal on Dirichlet DOFs)
         self.extra_diag = extra_diag
-        # Optional Pallas split-plane forms (see with_pallas)
-        self.Wps = Wps  # f32 planes for f32 matvecs
-        self.Wdd = Wdd  # Dekker-split planes for dd f64 matvecs
-        self.interpret = interpret
 
     @classmethod
     def from_element_operator(cls, op, grid_shape, ndof=2, extra_diag=None):
@@ -135,42 +166,8 @@ class GridStencilOperator:
     def dtype(self):
         return self.W.dtype
 
-    def with_pallas(self, interpret=False):
-        """Copy of the operator carrying Pallas split-plane stencil forms.
-
-        ``mv`` then dispatches f64 inputs to the compensated double-float
-        kernel (pallas_stencil.dd_stencil_matvec, ~1e-11 relative backward
-        error at f32 VPU rate vs XLA's software-emulated f64 — measured
-        21.9 ms -> 1.4 ms per k=8 matvec at 1M DOF) and f32 inputs to the
-        f32 plane kernel. Applied at the SOLVER boundary only
-        (ops/autodiff._pallas_ops): the differentiable assemble path (the
-        ``bilinear`` closures in the eigh_gen VJPs) re-assembles plain
-        operators, so jax.grad never traces a pallas_call.
-        """
-        from .pallas_stencil import stencil_planes, stencil_planes_dd
-
-        Wps = stencil_planes(self.W, self.ndof)
-        Wdd = (stencil_planes_dd(self.W, self.ndof)
-               if self.W.dtype == jnp.float64 else None)
-        return GridStencilOperator(self.mats, self.dofs, self.n, self.W,
-                                   self.grid_shape, self.ndof,
-                                   extra_diag=self.extra_diag, Wps=Wps,
-                                   Wdd=Wdd, interpret=interpret)
-
     def mv(self, x):
         nx, ny = self.grid_shape
-        if self.Wdd is not None and x.dtype == jnp.float64:
-            from .pallas_stencil import dd_stencil_matvec
-
-            xb = x[:, None] if x.ndim == 1 else x
-            out = dd_stencil_matvec(self.Wdd, xb, nx, ny, self.ndof,
-                                    interpret=self.interpret)
-            return out[:, 0] if x.ndim == 1 else out
-        if self.Wps is not None and x.dtype == jnp.float32:
-            from .pallas_stencil import pallas_stencil_matvec
-
-            return pallas_stencil_matvec(self.Wps, x, nx, ny, self.ndof,
-                                         interpret=self.interpret)
         return stencil_matvec(self.W, x, nx, ny, self.ndof)
 
     def __call__(self, x):
@@ -185,13 +182,11 @@ class GridStencilOperator:
         return out
 
     def tree_flatten(self):
-        return (self.mats, self.dofs, self.W, self.extra_diag, self.Wps,
-                self.Wdd), (self.n, self.grid_shape, self.ndof,
-                            self.interpret)
+        return (self.mats, self.dofs, self.W, self.extra_diag), (
+            self.n, self.grid_shape, self.ndof)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        mats, dofs, W, extra_diag, Wps, Wdd = children
-        n, grid_shape, ndof, interpret = aux
-        return cls(mats, dofs, n, W, grid_shape, ndof, extra_diag=extra_diag,
-                   Wps=Wps, Wdd=Wdd, interpret=interpret)
+        mats, dofs, W, extra_diag = children
+        n, grid_shape, ndof = aux
+        return cls(mats, dofs, n, W, grid_shape, ndof, extra_diag=extra_diag)

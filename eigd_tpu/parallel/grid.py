@@ -7,7 +7,7 @@ columns of nodes, ``make_grid``'s ``nodes[i, j] = i*(ny+1) + j`` layout):
 device d owns lines ``[d*L, (d+1)*L)`` and the element columns that start on
 them. A matvec then needs exactly one halo line from the right neighbour and
 sends one boundary line of scatter contributions back — two ``ppermute``s of
-``line_dofs`` words per apply, the TPU-ICI analog of MPI nearest-neighbour
+``line_dofs`` words per apply, the device-mesh analog of MPI nearest-neighbour
 domain decomposition (reference crm.py:11,71, rebuilt properly).
 
 Everything in this module runs once on the host (plain numpy) and produces
@@ -26,9 +26,9 @@ def make_mesh(n_devices=None, axis="grid"):
 
     The workload's parallel dimensions (SURVEY.md §2.4, §5.7-5.8): the
     element batch (embarrassingly parallel assembly) and the DOF dimension
-    of the Lanczos basis (psum-reduced tall-skinny matmuls). Collectives
-    ride ICI within a slice; a 2-D mesh (grid x slice) is the natural
-    extension for multi-slice scale-out over DCN.
+    of the Lanczos basis (psum-reduced tall-skinny matmuls). The mesh is
+    a flat device list: on an all-to-all NVLink host no topology shape
+    applies.
     """
     import jax
     from jax.sharding import Mesh

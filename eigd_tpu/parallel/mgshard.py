@@ -1,13 +1,13 @@
 """Line-sharded geometric multigrid shift-invert factor (shard_map).
 
 VERDICT r1 §3: the O(n)-memory GridMGFactor (the only factor viable at 1M+
-DOF) gets a multi-device version. Design, TPU-first:
+DOF) gets a multi-device version. Design:
 
 * The DOF vectors are sharded over node lines exactly like the rest of the
   sharded pipeline (parallel.grid.GridPartition): device d owns fine lines
   [d*L, (d+1)*L). The Chebyshev smoother's stencil matvec needs ONE halo
   line from each neighbour — two ``ppermute``s per application, O(surface)
-  comms riding ICI.
+  comms.
 * Grid transfers stay device-local by construction: with L even, fine lines
   2I, 2I+1 of a locally-owned coarse line I are locally owned, so
   restriction needs one LEFT fine halo and prolongation one RIGHT coarse

@@ -1,6 +1,6 @@
 """DOF-dimension sharding of the eigensolve/adjoint pipeline (shard_map).
 
-This is the TPU-native rebuild of the distributed role MPI plays for the
+This is the on-device rebuild of the distributed role MPI plays for the
 reference (only through TACS, crm.py:11,71), designed per SURVEY.md §5.7-5.8:
 
 * long vectors (Lanczos basis, adjoint blocks, displacement fields) are
@@ -841,7 +841,7 @@ def make_sharded_crm_objective(n_devices, nspan=8, nchord=4, nheight=2,
     right neighbour (two ppermutes per apply). The shift-invert factor is
     the same one-level Schwarz-PCG used by the plane-stress objectives,
     with the device-local station block-tridiagonal Cholesky as the
-    preconditioner. This is the TPU-native role of the MPI-parallel TACS
+    preconditioner. This is the on-device role of the MPI-parallel TACS
     assembly + solve in the reference (crm.py:11,62-144).
 
     Returns (objective(tcomp) -> modal compliance, crm, mesh, part); the
@@ -1032,7 +1032,7 @@ class StationSchurFactor:
       apply.
 
     This is the distributed role SuperLU+MPI-TACS play in the reference's
-    CRM (crm.py:62-144), built for the TPU ICI mesh. Unlike the one-level
+    CRM (crm.py:62-144), built for a device mesh. Unlike the one-level
     Schwarz-PCG (whose conditioning fails on shell matrices with ~1e8
     bending/membrane spread), the apply is exact regardless of
     conditioning.

@@ -1,4 +1,4 @@
-"""Structured profiling: the TPU-native version of the reference's per-run
+"""Structured profiling: the on-device version of the reference's per-run
 ``profile`` dict + SpLuOperator.count (SURVEY.md §5.1).
 
 ``FactorCounter`` wraps any factor and counts applies as a device-side scalar

@@ -1,16 +1,12 @@
-"""One-time 1M-DOF CPU baseline measurement (VERDICT r3 item 2).
+"""1M-DOF CPU baseline measurement.
 
 Runs the reference-shaped SciPy pipeline (SuperLU factor + ARPACK
 shift-invert eigsh + the adjoint's 120+1 factor applications,
-/root/reference/eigd/eigenvector_derivatives.py:11-23, arpack.py:438-442)
-at the flagship 1024x512 plane-stress configuration (1,051,650 DOF) on the
-host CPU, twice, and prints one JSON line with both times and the min.
+eigenvector_derivatives.py:11-23, arpack.py:438-442 of the reference) at the
+flagship 1024x512 plane-stress configuration (1,051,650 DOF) on the host
+CPU, twice, and prints one JSON line with both times and the min:
 
-The measured constant is committed into bench.py as CPU_BASELINE_1M so the
-driver-run bench can report extra_1m.vs_baseline without paying the
-multi-minute CPU solve each round; re-run this script to refresh it:
-
-    JAX_PLATFORM_NAME=cpu python scripts/bench_cpu_1m.py
+    JAX_PLATFORMS=cpu python scripts/bench_cpu_1m.py
 """
 
 import json
@@ -20,30 +16,26 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
-os.environ["EIGD_BENCH_NX"] = os.environ.get("EIGD_BENCH_NX", "1024")
-os.environ["EIGD_BENCH_NY"] = os.environ.get("EIGD_BENCH_NY", "512")
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import bench  # noqa: E402
+
+NX, NY = bench.STAGES["1m"]
 
 
 def main():
     reps = int(os.environ.get("EIGD_CPU_1M_REPS", 2))
+    topo = bench.make_topo(NX, NY)
     times = []
     for r in range(reps):
         t0 = time.perf_counter()
-        base_time, lam = bench.cpu_baseline()
+        base_time, lam = bench.cpu_baseline(topo)
         total = time.perf_counter() - t0
         times.append(base_time)
         print(f"rep {r}: solve={base_time:.1f}s total={total:.1f}s "
               f"lam[3:6]={lam[3:6]}", file=sys.stderr, flush=True)
     out = {"metric": "CPU baseline: SuperLU+ARPACK+120 applies, "
-                     f"{bench.NX}x{bench.NY} "
-                     f"({2 * (bench.NX + 1) * (bench.NY + 1)} DOF)",
+                     f"{NX}x{NY} ({2 * (NX + 1) * (NY + 1)} DOF)",
            "times_s": [round(t, 1) for t in times],
            "value": round(min(times), 1), "unit": "s"}
     print(json.dumps(out), flush=True)

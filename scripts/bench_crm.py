@@ -5,12 +5,10 @@ SAME mesh (the reference CRM pipeline shape, /root/reference/examples/crm.py:
 budget for the adjoint), and a central-difference check of the modal-
 compliance gradient. Prints ONE JSON line on stdout; diagnostics to stderr.
 
-Defaults target the ~100k-DOF configuration round 2 measured at
-19 s + 6.9 s warm (nspan=256, nchord=16, nheight=4, m=96 — the
-EIGD_RUN_SLOW test config, tests/test_crm.py::test_compliance_fd_large).
-A heavier-chord/height layout (CRM_NSPAN=330 NCHORD=12 NHEIGHT=6,
-b=312) runs ~59 s + 46 s at the same DOF — BCR cost scales as nb*b^3,
-so chord/height resolution, not span, sets the block cost.
+Defaults target the ~100k-DOF configuration (nspan=256, nchord=16,
+nheight=4, m=96 — the EIGD_RUN_SLOW test config,
+tests/test_crm.py::test_compliance_fd_large). BCR cost scales as nb*b^3, so
+chord/height resolution, not span, sets the block cost.
 """
 
 import json
@@ -25,17 +23,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_enable_x64", True)
-_CACHE_DIR = os.environ.get(
-    "EIGD_BENCH_CACHE", os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache"))
-try:
-    os.makedirs(_CACHE_DIR, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-except Exception as e:  # pragma: no cover
-    print(f"compile cache unavailable: {e}", file=sys.stderr)
+import eigd_tpu  # noqa: E402,F401  (x64 mode and the compile cache)
 
 NSPAN = int(os.environ.get("CRM_NSPAN", 256))
 NCHORD = int(os.environ.get("CRM_NCHORD", 16))
@@ -110,6 +98,8 @@ def main():
               m=M_KRYLOV, lanczos_polish=POLISH,
               lanczos_polish_spare=POLISH_SPARE, lanczos_block=BLOCK)
     crm._ensure_cfg()
+    dev = jax.devices()
+    log(f"device: {dev[0].platform} {dev[0].device_kind} x{len(dev)}")
     log(f"CRM bench: {crm.nvars} padded DOF, {crm.nb} stations x b={crm.b}, "
         f"m={crm.m} block={crm.cfg.block} sweep={crm.cfg.lanczos_sweep}")
 
@@ -125,7 +115,9 @@ def main():
     result = {
         "metric": f"CRM wingbox: {N} eigenpairs + adjoint gradient, "
                   f"{crm.nvars} padded DOF ({crm.nb} stations x b={crm.b})",
-        "value": round(wall, 3), "unit": "s",
+        "value": wall, "unit": "s",
+        "device": {"platform": dev[0].platform,
+                   "kind": dev[0].device_kind, "count": len(dev)},
         "vs_baseline": None, "fd_rel": None}
     # Re-printed after every completed stage (same protocol as bench.py):
     # the caller takes the last parseable line.
@@ -136,21 +128,17 @@ def main():
 
     base = float("nan")
     if not os.environ.get("CRM_NO_BASELINE") and _rem() > 120:
-        try:
-            # min of 2 reps (CPU draw-to-draw variance is ~±20%; min is
-            # the conservative side of vs_baseline — same protocol as
-            # bench.py's headline baseline)
-            reps = int(os.environ.get("CRM_BASELINE_REPS", 2))
-            times = []
-            for rr in range(reps):
-                bt, lam_cpu = cpu_baseline(crm)
-                log(f"CPU baseline rep {rr}: {bt:.1f}s lam={lam_cpu[:3]}")
-                times.append(bt)
-                if _rem() < 90:
-                    break
-            base = min(times)
-        except Exception as e:  # pragma: no cover
-            log(f"CPU baseline failed: {e}")
+        # min of 2 reps (CPU draw-to-draw variance is ~±20%; min is the
+        # conservative side of vs_baseline — same protocol as bench.py)
+        reps = int(os.environ.get("CRM_BASELINE_REPS", 2))
+        times = []
+        for rr in range(reps):
+            bt, lam_cpu = cpu_baseline(crm)
+            log(f"CPU baseline rep {rr}: {bt:.1f}s lam={lam_cpu[:3]}")
+            times.append(bt)
+            if _rem() < 90:
+                break
+        base = min(times)
         if np.isfinite(base):
             result["vs_baseline"] = round(base / wall, 3)
             result["cpu_baseline_s"] = round(base, 2)
@@ -162,16 +150,13 @@ def main():
     # round/guess programs cache-hit from the adjoint solve, so this costs
     # ~one adjoint solve.
     if not os.environ.get("CRM_NO_JVP") and _rem() > t_adj + 90:
-        try:
-            t0 = time.perf_counter()
-            dv = crm.objective_jvp(pert)
-            jvp_rel = abs(ans - dv) / abs(dv)
-            result["jvp_rel"] = jvp_rel
-            log(f"JVP check: vjp={ans:.12e} jvp={dv:.12e} rel={jvp_rel:.3e}"
-                f" ({time.perf_counter() - t0:.1f}s)")
-            print(json.dumps(result), flush=True)
-        except Exception as e:  # pragma: no cover
-            log(f"JVP check failed: {e}")
+        t0 = time.perf_counter()
+        dv = crm.objective_jvp(pert)
+        jvp_rel = abs(ans - dv) / abs(dv)
+        result["jvp_rel"] = jvp_rel
+        log(f"JVP check: vjp={ans:.12e} jvp={dv:.12e} rel={jvp_rel:.3e}"
+            f" ({time.perf_counter() - t0:.1f}s)")
+        print(json.dumps(result), flush=True)
 
     if not os.environ.get("CRM_NO_FD") and _rem() > 4 * t_fwd + 60:
         # Richardson-extrapolated central differences (same estimator set as

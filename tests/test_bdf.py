@@ -1,4 +1,4 @@
-"""BDF ingestion tests (reference crm.py:62-121 capability, TPU-native).
+"""BDF ingestion tests (reference crm.py:62-121 capability, on device).
 
 A cantilever plate strip is written as NASTRAN bulk data (mixed small-field
 and free-field cards), parsed, run end-to-end through CRM.from_bdf on both

@@ -1,100 +1,98 @@
-"""CPU-side validation of the TPU double-float (Dekker split) contraction
-kernels against the native f64 product (ADVICE r1: the split path must be
-exercised by CI even though CPU short-circuits to native f64 by default)."""
+"""Basis contractions over the DOF dimension against NumPy f64: the native
+f64 ``pdot`` / ``tdot`` products, serial and under ``shard_map`` on the
+virtual 8-device CPU mesh, plus the chunked f32 sweep product and qr_tall."""
+
+from functools import partial
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from jax import shard_map
+from jax.sharding import PartitionSpec as P
 
-from eigd_tpu.ops.collective import (chunked_dot_f32, dd_dot, dd_dot_rowsT,
-                                     dd_mul_small, qr_tall)
+from eigd_tpu.ops.collective import chunked_dot_f32, pdot, qr_tall, tdot
+from eigd_tpu.parallel import make_mesh
+
+NDEV = 8
 
 
-@pytest.mark.parametrize("m,n,k", [(8, 5000, 3), (16, 300, 8), (1, 8192, 1)])
-def test_dd_dot_split_matches_f64(m, n, k):
+def _rel(got, ref):
+    return np.linalg.norm(np.asarray(got) - ref) / np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 5000, 3), (16, 304, 8),
+                                   (1, 8192, 1)])
+def test_pdot_matches_f64(m, n, k):
     rng = np.random.default_rng(0)
-    # mixed magnitudes so input-rounding errors would show if mishandled
-    X = jnp.asarray(rng.standard_normal((m, n)) *
-                    10.0 ** rng.uniform(-6, 6, size=(m, 1)))
-    w = jnp.asarray(rng.standard_normal((n, k)))
-    ref = np.asarray(X) @ np.asarray(w)
-    got = np.asarray(dd_dot(X, w, force_split=True))
-    scale = np.linalg.norm(ref)
-    assert np.linalg.norm(got - ref) / scale < 1e-12
+    # mixed row magnitudes: an f32-accurate product would show here
+    X = rng.standard_normal((m, n)) * 10.0 ** rng.uniform(-6, 6, (m, 1))
+    w = rng.standard_normal((n, k))
+    got = jax.jit(partial(pdot, axis=None))(jnp.asarray(X), jnp.asarray(w))
+    assert got.dtype == jnp.float64
+    assert _rel(got, X @ w) < 1e-13
 
 
-def test_dd_dot_split_cancellation():
-    # catastrophic-cancellation column: hi parts cancel, lo parts carry the
-    # answer — a sign bug in the split would give O(1) relative error
+def test_pdot_cancellation():
+    # hi parts cancel and the small remainder carries the answer: a product
+    # at f32 accuracy would be O(1) wrong here
     n = 4096
     rng = np.random.default_rng(1)
     a = rng.standard_normal(n)
-    X = jnp.asarray(np.stack([a, -a + 1e-9 * rng.standard_normal(n)]))
-    w = jnp.asarray(np.ones((n, 1)))
-    ref = np.asarray(X) @ np.asarray(w)
-    got = np.asarray(dd_dot(X, w, force_split=True))
-    assert abs(got[0, 0] + got[1, 0] - (ref[0, 0] + ref[1, 0])) < 1e-10
+    X = np.stack([a, -a + 1e-9 * rng.standard_normal(n)])
+    w = np.ones((n, 1))
+    got = np.asarray(pdot(jnp.asarray(X), jnp.asarray(w), None))
+    ref = X @ w
+    assert abs(got.sum() - ref.sum()) < 1e-10
 
 
 @pytest.mark.parametrize("rows,n,k", [(32, 300, 8), (4, 64, 4)])
-def test_dd_dot_rowsT_split_matches_f64(rows, n, k):
+def test_tdot_matches_f64(rows, n, k):
     rng = np.random.default_rng(2)
-    R = jnp.asarray(rng.standard_normal((rows, n)) *
-                    10.0 ** rng.uniform(-4, 4, size=(rows, 1)))
-    h = jnp.asarray(rng.standard_normal((rows, k)))
-    ref = np.asarray(R).T @ np.asarray(h)
-    got = np.asarray(dd_dot_rowsT(R, h, force_split=True))
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-12
+    R = rng.standard_normal((rows, n)) * 10.0 ** rng.uniform(-4, 4, (rows, 1))
+    h = rng.standard_normal((rows, k))
+    got = jax.jit(tdot)(jnp.asarray(R), jnp.asarray(h))
+    assert got.shape == (n, k) and got.dtype == jnp.float64
+    assert _rel(got, R.T @ h) < 1e-13
 
 
-@pytest.mark.parametrize("n,p,k", [(5000, 8, 8), (300, 16, 4)])
-def test_dd_mul_small_split_matches_f64(n, p, k):
-    rng = np.random.default_rng(5)
-    X = jnp.asarray(rng.standard_normal((n, p)) *
-                    10.0 ** rng.uniform(-4, 4, size=(1, p)))
-    M = jnp.asarray(rng.standard_normal((p, k)))
-    ref = np.asarray(X) @ np.asarray(M)
-    got = np.asarray(dd_mul_small(X, M, force_split=True))
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-12
+@pytest.fixture(scope="module")
+def mesh():
+    assert len(jax.devices()) >= NDEV, jax.devices()
+    return make_mesh(NDEV, axis="grid")
 
 
-def test_dd_dot_pair_operand_matches_f64():
-    # (hi, lo) pre-split second operand == splitting the combined f64
-    rng = np.random.default_rng(6)
-    X = jnp.asarray(rng.standard_normal((8, 4000)))
-    w = rng.standard_normal((4000, 8))
-    wh = w.astype(np.float32)
-    wl = (w - wh.astype(np.float64)).astype(np.float32)
-    ref = np.asarray(X) @ w
-    got = np.asarray(dd_dot(X, (jnp.asarray(wh), jnp.asarray(wl)),
-                            force_split=True))
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-12
-
-
-def test_dd_mul_small_pair_roundtrip():
-    # pair in -> pair out stays f32-pair accurate vs the exact product
-    rng = np.random.default_rng(7)
-    X = rng.standard_normal((3000, 8))
-    Xh = X.astype(np.float32)
-    Xl = (X - Xh.astype(np.float64)).astype(np.float32)
-    M = jnp.asarray(rng.standard_normal((8, 8)))
-    ref = X @ np.asarray(M)
-    s, c = dd_mul_small((jnp.asarray(Xh), jnp.asarray(Xl)), M,
-                        force_split=True, out_pair=True)
-    got = np.asarray(s).astype(np.float64) + np.asarray(c).astype(
-        np.float64)
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-12
-
-
-def test_dd_dot_split_under_jit():
+def test_pdot_sharded_matches_f64(mesh):
+    """DOF-sharded (m, n) @ (n, k): local GEMM + psum over the mesh axis."""
     rng = np.random.default_rng(3)
-    X = jnp.asarray(rng.standard_normal((6, 5000)))
-    w = jnp.asarray(rng.standard_normal((5000, 2)))
-    f = jax.jit(lambda X, w: dd_dot(X, w, force_split=True))
-    ref = np.asarray(X) @ np.asarray(w)
-    got = np.asarray(f(X, w))
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-12
+    m, n, k = 24, 8 * 640, 8
+    X = rng.standard_normal((m, n))
+    w = rng.standard_normal((n, k))
+
+    @partial(shard_map, mesh=mesh, in_specs=(P(None, "grid"), P("grid")),
+             out_specs=P())
+    def f(Xl, wl):
+        return pdot(Xl, wl, "grid")
+
+    got = jax.jit(f)(jnp.asarray(X), jnp.asarray(w))
+    assert _rel(got, X @ w) < 1e-13
+
+
+def test_tdot_sharded_matches_f64(mesh):
+    """rows^T @ h with the rows block sharded over DOFs: the result stays
+    DOF-sharded, no collective."""
+    rng = np.random.default_rng(4)
+    rows, n, k = 16, 8 * 512, 6
+    R = rng.standard_normal((rows, n))
+    h = rng.standard_normal((rows, k))
+
+    @partial(shard_map, mesh=mesh, in_specs=(P(None, "grid"), P()),
+             out_specs=P("grid"))
+    def f(Rl, hl):
+        return tdot(Rl, hl)
+
+    got = jax.jit(f)(jnp.asarray(R), jnp.asarray(h))
+    assert _rel(got, R.T @ h) < 1e-13
 
 
 def test_chunked_dot_f32_accuracy():

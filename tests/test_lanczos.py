@@ -381,7 +381,7 @@ class TestBlockLanczos:
 
 class TestRitzPolish:
     """polish_ritz_block: shift-invert subspace-iteration refinement of the
-    selected Ritz block (the TPU basis-noise correction; see the docstring
+    selected Ritz block (the f32-sweep basis-noise correction; see the docstring
     in ops/lanczos.py). On an exact-f64 backend it must be a numerical
     no-op on converged pairs — and it must strictly reduce the true pencil
     residual of artificially perturbed eigenvectors."""
@@ -419,7 +419,7 @@ class TestRitzPolish:
         lam_ref, Phi_ref = scipy.linalg.eigh(np.asarray(A), np.asarray(B))
         N = 4
         rng = np.random.default_rng(3)
-        # Noise restricted to the high end of the spectrum — the TPU noise
+        # Noise restricted to the high end of the spectrum — the basis noise
         # model (f32-sweep and measurement error lands in directions far
         # from the shift, where the shift-invert gain is tiny).
         hi = Phi_ref[:, 20:]
@@ -597,7 +597,7 @@ class TestStagedValueAndGrad:
 
 class TestChunkedForward:
     """chunk_forward dispatches the block Lanczos sweep a few steps per
-    program (v5e 60 s execution kill); must reproduce the fused sweep."""
+    program (short device executions); must reproduce the fused sweep."""
 
     def _problem(self):
         from eigd_tpu import DenseOperator

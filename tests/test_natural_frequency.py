@@ -118,7 +118,7 @@ class TestBlockTridiagPath:
 class TestBlockDegreeWarning:
     """The block-q convergence warning (VERDICT r4 item 7): the blessed
     bench configuration (block 16, q=11, polish=3 — oracle-verified at
-    4.2e-7, BENCH_r04) must construct warning-free, while a genuinely
+    jvp_rel 1.5e-9 on the H100) must construct warning-free, while a genuinely
     marginal configuration must still warn."""
 
     def test_blessed_config_is_warning_clean(self):

@@ -1,5 +1,5 @@
-"""Multi-device tests on the virtual 8-device CPU mesh (the TPU analog of
-multi-node testing, SURVEY.md §4): halo-exchange matvec, Schwarz-PCG factor,
+"""Multi-device tests on the virtual 8-device CPU mesh (the stand-in for
+multi-card testing, SURVEY.md §4): halo-exchange matvec, Schwarz-PCG factor,
 and serial-vs-sharded gradient parity through the full eigensolve+adjoint."""
 
 from functools import partial
